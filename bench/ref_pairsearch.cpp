@@ -14,7 +14,7 @@
 //   * llks00[a] += log(sum_lm gp0*gp0 * pGs)              (ref :700-709)
 //
 // No code is copied from the reference; this is a from-scratch implementation
-// of the same loop nest for timing purposes only (the TPU engine's real
+// of the same loop nest for timing purposes only (the device engine's real
 // correctness oracle is oracle/numpy_oracle.py + golden tests).
 //
 // Usage: ref_pairsearch <ncells> <nsnps_per_cell> <numis_per_snp> <nv>

@@ -2,7 +2,7 @@
 
 This is a deliberately *slow, loop-faithful* re-implementation of the two
 likelihood passes and output writing of the reference
-(cmd_cram_demuxlet.cpp:390-875), used as the ground truth that the TPU engine
+(cmd_cram_demuxlet.cpp:390-875), used as the ground truth that the device engine
 must match at printed precision. It follows the reference's exact evaluation
 order: per-UMI renormalization (":440-443"), 1e-6 smoothing (":446-452"),
 per-UMI max-renormalization in the pair pass (":626-639"), strict-inequality
@@ -20,8 +20,8 @@ import math
 
 import numpy as np
 
-from demuxlet_tpu.host.pileup import PileupData  # shared data model
-from demuxlet_tpu.utils.phred import PHRED2ERR, PHRED2MAT
+from demuxlet_jax.host.pileup import PileupData  # shared data model
+from demuxlet_jax.utils.phred import PHRED2ERR, PHRED2MAT
 
 __all__ = [
     "PileupData",
@@ -197,7 +197,7 @@ def pass2_outputs(
     """Pass 2 + decision + .sing2/.pair/.best lines (cmd_cram_demuxlet.cpp:576-875).
 
     llksAB_fn: optional override that returns (llksAB, llksA0, llks00) for a
-    cellid — used to validate the TPU engine's LLKs against the reference
+    cellid — used to validate the device engine's LLKs against the reference
     decision logic.
     """
     nv = scl.nv

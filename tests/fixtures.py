@@ -12,7 +12,7 @@ import struct
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
-from demuxlet_tpu.io.bgzf import BgzfWriter
+from demuxlet_jax.io.bgzf import BgzfWriter
 
 SEQ_NT16 = "=ACMGRSVTWYHKDBN"
 CIGAR_OPS = "MIDNSHP=X"
@@ -99,7 +99,7 @@ def write_tabix(vcf_gz_path: str, contigs: List[Tuple[str, int]]) -> str:
     import gzip as _gzip
     import struct as _struct
 
-    from demuxlet_tpu.io.bgzf import read_block_at
+    from demuxlet_jax.io.bgzf import read_block_at
 
     # block table (file offset, uncompressed start) + full text, then map
     # each chromosome's first data-line uncompressed offset to a voff
@@ -276,7 +276,7 @@ def write_bam(
             for c in cg_payload:
                 rec += struct.pack("<I", c)
         buf += struct.pack("<i", len(rec)) + bytes(rec)
-    from demuxlet_tpu.io.bgzf import BGZF_EOF, compress_block
+    from demuxlet_jax.io.bgzf import BGZF_EOF, compress_block
 
     blk = 65280
     comp = bytearray()
@@ -419,7 +419,7 @@ def write_bcf(
     fields — enough to exercise io/bcf.py against the text VCF path.
     dup_dp_header=True inserts DP as both an INFO and a FORMAT line with no
     explicit IDX; per BCF2 spec both share ONE implicit dictionary index."""
-    from demuxlet_tpu.io.bgzf import BgzfWriter
+    from demuxlet_jax.io.bgzf import BgzfWriter
 
     contigs = contigs or []
     lines = ["##fileformat=VCFv4.2", '##FILTER=<ID=PASS,Description="All filters passed">']
@@ -523,7 +523,7 @@ def _write_bcf_csi(path, contigs, first_rec):
     contig with loff = its first record's virtual offset."""
     import gzip as _gzip
 
-    from demuxlet_tpu.io.bgzf import read_block_at
+    from demuxlet_jax.io.bgzf import read_block_at
 
     blocks = []
     u = 0
@@ -591,8 +591,12 @@ def _cram_block(ctype: int, cid: int, data: bytes, method: int = 0) -> bytes:
         import bz2 as _bz2
 
         comp = _bz2.compress(data)
+    elif method == 3:
+        import lzma as _lzma
+
+        comp = _lzma.compress(data, format=_lzma.FORMAT_XZ)
     elif method == 4:
-        from demuxlet_tpu.io import rans
+        from demuxlet_jax.io import rans
 
         comp = rans.compress(data, order=1 if len(data) >= 4 else 0)
     else:

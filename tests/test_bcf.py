@@ -4,7 +4,7 @@ import random
 
 import numpy as np
 
-from demuxlet_tpu.io.vcf import load_snp_table
+from demuxlet_jax.io.vcf import load_snp_table
 from fixtures import SimVariant, random_workload, write_bcf, write_vcf
 
 
@@ -86,7 +86,7 @@ def test_csi_region_seek_matches_full_load(tmp_path):
 
     import numpy as np
 
-    from demuxlet_tpu.io.vcf import filter_snp_table, load_snp_table
+    from demuxlet_jax.io.vcf import filter_snp_table, load_snp_table
     from fixtures import SimVariant, write_bcf
 
     rng = random.Random(13)

@@ -12,12 +12,12 @@ import random
 import numpy as np
 import pytest
 
-from demuxlet_tpu.host.csr import CsrPileup
-from demuxlet_tpu.host.pileup import build_pileup
-from demuxlet_tpu.host.slots import build_slots
-from demuxlet_tpu.io.bam import AlignmentReader
-from demuxlet_tpu.io.cram import CramReader
-from demuxlet_tpu.io.vcf import load_snp_table
+from demuxlet_jax.host.csr import CsrPileup
+from demuxlet_jax.host.pileup import build_pileup
+from demuxlet_jax.host.slots import build_slots
+from demuxlet_jax.io.bam import AlignmentReader
+from demuxlet_jax.io.cram import CramReader
+from demuxlet_jax.io.vcf import load_snp_table
 from fixtures import SimRead, SimVariant, write_bam, write_cram, write_vcf
 
 
@@ -104,7 +104,7 @@ def test_cram_pileup_matches_bam(tmp_path):
 
 
 def test_cram_cli_end_to_end(tmp_path):
-    from demuxlet_tpu import cli
+    from demuxlet_jax import cli
 
     vcf, bam, cram = _workload(tmp_path, seed=29)
     rc = cli.main(["--sam", cram, "--vcf", vcf, "--field", "GT",
@@ -119,9 +119,10 @@ def test_cram_cli_end_to_end(tmp_path):
     )
 
 
-@pytest.mark.parametrize("method", [1, 4])  # gzip, rANS 4x8
+@pytest.mark.parametrize("method", [1, 3, 4])  # gzip, lzma, rANS 4x8
 def test_cram_compressed_blocks(tmp_path, method):
-    """gzip- and rANS-compressed external blocks decode identically to BAM."""
+    """gzip-, lzma- and rANS-compressed external blocks decode identically
+    to BAM."""
     vcf, bam, cram = _workload(tmp_path / ("m%d" % method), seed=31,
                                method=method)
     table = load_snp_table(vcf, field_name="GT")
@@ -139,7 +140,7 @@ def test_cram_compressed_blocks(tmp_path, method):
 def test_cramread_feature_walk_direct():
     """Hand-built feature lists: 'b' (explicit base run) and 'i' (single-base
     insertion) walk correctly; matches resolve through ref_base."""
-    from demuxlet_tpu.io.cram import CramRead, Feature, _SubCode
+    from demuxlet_jax.io.cram import CramRead, Feature, _SubCode
 
     # read at pos 10, len 10: 2 match, b-run "GT" at read pos 3-4, 3 match,
     # single-base insertion at pos 8, 2 match
@@ -254,7 +255,7 @@ def test_cram_b_feature_qual_without_preserved_quals(tmp_path):
     (al, bq), = scl.umis[(0, 0)].values()
     assert (al, bq) == (1, bq_b)
 
-    native = pytest.importorskip("demuxlet_tpu.native.ingest")
+    native = pytest.importorskip("demuxlet_jax.native.ingest")
     if not native.available():
         pytest.skip("native ingest not built")
     csr_n, _ = native.build_pileup(cram, table)
@@ -271,8 +272,8 @@ def test_cram_31_codec_loud_error():
     at block decode, not at the version gate."""
     from types import SimpleNamespace
 
-    from demuxlet_tpu.io.cram import CramReader, _Buf
-    from demuxlet_tpu.utils.logging_utils import DemuxError
+    from demuxlet_jax.io.cram import CramReader, _Buf
+    from demuxlet_jax.utils.logging_utils import DemuxError
 
     # minimal block: method=5 (rANS-Nx16), ctype=4, cid=0, csize=1,
     # rsize=1, 1 payload byte, 4 CRC bytes

@@ -26,8 +26,8 @@ import random
 import numpy as np
 import pytest
 
-from demuxlet_tpu.io.bam import AlignmentReader
-from demuxlet_tpu.io.cram import CramReader, _Buf
+from demuxlet_jax.io.bam import AlignmentReader
+from demuxlet_jax.io.cram import CramReader, _Buf
 from fixtures import SimRead, SimVariant, write_bam, write_cram, write_vcf
 
 BASES = "ACGT"
@@ -147,12 +147,12 @@ def test_cram_fuzz_semantics_vs_bam_twin(tmp_path, seed):
 def test_cram_fuzz_native_pileup(tmp_path, seed):
     """The native C++ CRAM reader through the full pileup, against the
     Python CRAM reader AND the BAM twin, per fuzzed codec combo."""
-    native = pytest.importorskip("demuxlet_tpu.native.ingest")
+    native = pytest.importorskip("demuxlet_jax.native.ingest")
     if not native.available():
         pytest.skip("native ingest not built")
-    from demuxlet_tpu.host.csr import CsrPileup
-    from demuxlet_tpu.host.pileup import build_pileup
-    from demuxlet_tpu.io.vcf import load_snp_table
+    from demuxlet_jax.host.csr import CsrPileup
+    from demuxlet_jax.host.pileup import build_pileup
+    from demuxlet_jax.io.vcf import load_snp_table
 
     rng = random.Random(seed)
     cram, bam, contigs, ref_seqs, kw = _fuzz_files(tmp_path, seed)

@@ -1,4 +1,4 @@
-"""TPU engine vs NumPy oracle: LLK parity and byte-identical outputs."""
+"""Device engine vs NumPy oracle: LLK parity and byte-identical outputs."""
 
 import io
 import math
@@ -7,8 +7,8 @@ import random
 import numpy as np
 import pytest
 
-from demuxlet_tpu.models.engine import DemuxEngine, cell_stats, compute_gp0
-from demuxlet_tpu.models import outputs as out_mod
+from demuxlet_jax.models.engine import DemuxEngine, cell_stats, compute_gp0
+from demuxlet_jax.models import outputs as out_mod
 from oracle.numpy_oracle import (
     PileupData,
     compute_gp0s,
@@ -146,8 +146,8 @@ def test_engine_spool_resume(tmp_path):
     """Spooled rerun reproduces results without recomputation."""
     import numpy as np
 
-    from demuxlet_tpu.models.engine import DemuxEngine
-    from demuxlet_tpu.host.csr import CsrPileup
+    from demuxlet_jax.models.engine import DemuxEngine
+    from demuxlet_jax.host.csr import CsrPileup
 
     rng = np.random.default_rng(0)
     N, S, NSNPS, NV = 20, 10, 50, 3
@@ -178,7 +178,7 @@ def test_idx_delta_encoding_roundtrip():
     bit-identical to the unshrunk (codes, idx, msk) dispatch."""
     import numpy as np
 
-    from demuxlet_tpu.host.csr import CsrPileup
+    from demuxlet_jax.host.csr import CsrPileup
 
     rng = np.random.default_rng(11)
     NS, V, n, S_PER = 70000, 3, 64, 200
@@ -209,7 +209,7 @@ def test_idx_delta_encoding_roundtrip():
     for csr in (csr_delta, csr_wild):
         eng = DemuxEngine(gps, grid, cell_block=32, mode="fast")
         blk = __import__(
-            "demuxlet_tpu.host.csr", fromlist=["build_codes_block"]
+            "demuxlet_jax.host.csr", fromlist=["build_codes_block"]
         ).build_codes_block(csr, list(range(n)), pad_cells_to=32)
         shrunk = eng._shrink_codes_blk(
             (blk[0].copy(), blk[1], blk[2])
@@ -221,7 +221,7 @@ def test_idx_delta_encoding_roundtrip():
 
     # the engineered workload must actually take the delta form
     eng = DemuxEngine(gps, grid, cell_block=32, mode="fast")
-    from demuxlet_tpu.host.csr import build_codes_block
+    from demuxlet_jax.host.csr import build_codes_block
 
     blk = build_codes_block(csr_delta, list(range(n)), pad_cells_to=32)
     _, idx_s, _ = eng._shrink_codes_blk(blk)
@@ -231,7 +231,7 @@ def test_idx_delta_encoding_roundtrip():
 def test_n_snps_all_matches_per_cell_unique():
     import numpy as np
 
-    from demuxlet_tpu.host.csr import CsrPileup
+    from demuxlet_jax.host.csr import CsrPileup
 
     rng = np.random.default_rng(5)
     n, NS = 50, 500
@@ -254,7 +254,7 @@ def test_n_snps_all_matches_per_cell_unique():
 def _skewed_csr(seed=3, NSNPS=60, NV=3, N=24):
     import numpy as np
 
-    from demuxlet_tpu.host.csr import CsrPileup
+    from demuxlet_jax.host.csr import CsrPileup
 
     rng = np.random.default_rng(seed)
     # coverage skew: cell i covers 2 + 2*i observations
@@ -281,7 +281,7 @@ def test_coverage_sort_heuristic():
     skewed multi-bucket distribution sorts."""
     import numpy as np
 
-    from demuxlet_tpu.models.engine import DemuxEngine
+    from demuxlet_jax.models.engine import DemuxEngine
 
     csr, gps = _skewed_csr()
     eng = DemuxEngine(gps, [0.0, 0.5], cell_block=8, mode="fast")
@@ -315,8 +315,8 @@ def test_block_permutation_output_invariance():
 
     import numpy as np
 
-    from demuxlet_tpu.models import decision as D
-    from demuxlet_tpu.models.engine import DemuxEngine
+    from demuxlet_jax.models import decision as D
+    from demuxlet_jax.models.engine import DemuxEngine
 
     csr, gps = _skewed_csr()
     N = csr.nbcs

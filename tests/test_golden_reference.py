@@ -16,7 +16,7 @@ import sys
 
 import pytest
 
-from demuxlet_tpu import cli
+from demuxlet_jax import cli
 from fixtures import random_workload, write_sam, write_vcf
 from parity_utils import canonicalize_best
 
@@ -163,7 +163,7 @@ def test_golden_exact_engine_mode(tmp_path, ref_binary):
 
 
 def _bgzf_compress(src: str, dst: str) -> str:
-    from demuxlet_tpu.io.bgzf import BgzfWriter
+    from demuxlet_jax.io.bgzf import BgzfWriter
 
     with open(src, "rb") as fh:
         data = fh.read()
@@ -297,7 +297,7 @@ def test_golden_tutorial_vcf(tmp_path, ref_binary):
     reference binary vs our CLI, byte-for-byte."""
     import numpy as np
 
-    from demuxlet_tpu.io.vcf import load_snp_table
+    from demuxlet_jax.io.vcf import load_snp_table
     from fixtures import SimRead, write_sam
 
     # both binaries read the REAL BGZF .vcf.gz directly (the shim
@@ -389,8 +389,7 @@ def test_golden_large_pool(tmp_path, ref_binary, nv):
     parity against the reference binary at V=16 and V=32 with
     --write-pair — the reference's arbitrary-nv pair search
     (cmd_cram_demuxlet.cpp:671-709, nv^2 gpAB precompute) vs our engine
-    (CPU: XLA f64; the TPU tiled kernels are pinned to this same engine
-    path by the kernel/engine parity tests)."""
+    (XLA f64 contraction)."""
     vcf, sam = _workload(tmp_path, 419 + nv, n_cells=16, n_samples=nv)
     args = ["--field", "GT", "--write-pair"]
     _run_ref(ref_binary, vcf, sam, str(tmp_path / "ref"), args)

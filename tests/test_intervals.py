@@ -1,6 +1,6 @@
 """GenomeLoci interval-set semantics (genomeLoci.h analog)."""
 
-from demuxlet_tpu.utils.intervals import (
+from demuxlet_jax.utils.intervals import (
     GenomeLoci,
     Locus,
     parse_region,

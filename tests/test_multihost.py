@@ -6,12 +6,12 @@ import random
 
 import numpy as np
 
-from demuxlet_tpu.host.pileup import build_pileup
-from demuxlet_tpu.io.bam import AlignmentReader
-from demuxlet_tpu.io.vcf import load_snp_table
-from demuxlet_tpu.models import outputs as out_mod
-from demuxlet_tpu.models.engine import DemuxEngine, cell_stats
-from demuxlet_tpu.parallel import multihost as mh
+from demuxlet_jax.host.pileup import build_pileup
+from demuxlet_jax.io.bam import AlignmentReader
+from demuxlet_jax.io.vcf import load_snp_table
+from demuxlet_jax.models import outputs as out_mod
+from demuxlet_jax.models.engine import DemuxEngine, cell_stats
+from demuxlet_jax.parallel import multihost as mh
 from fixtures import random_workload, write_bam, write_vcf
 
 
@@ -64,7 +64,7 @@ def test_shard_merge_invariance(tmp_path):
     assert merged.barcodes == sorted(scl.barcodes)
 
     # rebuild outputs from the merged arrays and compare byte-for-byte
-    from demuxlet_tpu.models.outputs import CellStats
+    from demuxlet_jax.models.outputs import CellStats
 
     mstats = CellStats(
         barcodes=merged.barcodes, totl=merged.totl, pass_=merged.pass_,
@@ -104,8 +104,8 @@ def test_gather_results_single_process():
 
 def test_shard_merge_invariance_native(tmp_path):
     """Same shard-merge invariance through the native C++ ingest."""
-    pytest.importorskip("demuxlet_tpu.native.ingest")
-    from demuxlet_tpu.native import ingest as native
+    pytest.importorskip("demuxlet_jax.native.ingest")
+    from demuxlet_jax.native import ingest as native
 
     if not native.available():
         pytest.skip("native ingest not built")
@@ -150,7 +150,7 @@ def _run_cli(args, env, timeout=300):
     import sys
 
     p = subprocess.run(
-        [sys.executable, "-m", "demuxlet_tpu.cli"] + args,
+        [sys.executable, "-m", "demuxlet_jax.cli"] + args,
         env=env, capture_output=True, text=True, timeout=timeout,
     )
     assert p.returncode == 0, p.stderr[-4000:]
@@ -183,7 +183,7 @@ def test_two_process_jax_distributed_cli(tmp_path, mode):
     procs = []
     for k in range(2):
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "demuxlet_tpu.cli", "--sam", bam,
+            [sys.executable, "-m", "demuxlet_jax.cli", "--sam", bam,
              "--vcf", vcf, "--field", "GT", "--mode", mode,
              "--out", str(tmp_path / "dist"), "--device", "cpu",
              "--mesh", "none", "--num-shards", "2", "--shard-id", str(k),
@@ -249,7 +249,7 @@ def test_two_process_fast_stripe_bit_parity(tmp_path):
         port = s.getsockname()[1]
     coord = f"127.0.0.1:{port}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu.cli", "--sam", bam,
+        [sys.executable, "-m", "demuxlet_jax.cli", "--sam", bam,
          "--vcf", vcf, "--field", "GT", "--mode", "fast",
          "--out", str(tmp_path / "dist"), "--device", "cpu",
          "--mesh", "none", "--num-shards", "2", "--shard-id", str(k),
@@ -308,7 +308,7 @@ def test_two_process_distributed_write_pair(tmp_path):
         port = s.getsockname()[1]
     coord = f"127.0.0.1:{port}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu.cli", "--sam", bam,
+        [sys.executable, "-m", "demuxlet_jax.cli", "--sam", bam,
          "--vcf", vcf, "--field", "GT", "--write-pair",
          "--out", str(tmp_path / "dist"), "--device", "cpu",
          "--mesh", "none", "--num-shards", "2", "--shard-id", str(k),
@@ -388,7 +388,7 @@ def test_two_process_genome_sharded_cli(tmp_path):
         port = s.getsockname()[1]
     coord = f"127.0.0.1:{port}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu.cli", "--sam", bam,
+        [sys.executable, "-m", "demuxlet_jax.cli", "--sam", bam,
          "--vcf", vcf, "--field", "GT", "--mode", "exact",
          "--out", str(tmp_path / "dist"), "--device", "cpu",
          "--mesh", "none", "--num-shards", "2", "--shard-id", str(k),
@@ -448,7 +448,7 @@ def test_two_process_genome_shard_with_zero_snps(tmp_path):
         port = s.getsockname()[1]
     coord = f"127.0.0.1:{port}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu.cli", "--sam", bam,
+        [sys.executable, "-m", "demuxlet_jax.cli", "--sam", bam,
          "--vcf", vcf, "--field", "GT", "--mode", "exact",
          "--out", str(tmp_path / "dist"), "--device", "cpu",
          "--mesh", "none", "--num-shards", "2", "--shard-id", str(k),
@@ -481,7 +481,7 @@ def test_two_process_distributed_with_mesh(tmp_path):
         port = s.getsockname()[1]
     coord = f"127.0.0.1:{port}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu.cli", "--sam", bam,
+        [sys.executable, "-m", "demuxlet_jax.cli", "--sam", bam,
          "--vcf", vcf, "--field", "GT", "--mode", "exact",
          "--out", str(tmp_path / "dist"), "--device", "cpu",
          "--mesh", "auto", "--cell-block", "32",
@@ -511,7 +511,7 @@ def test_two_process_genome_sharded_cli_indexed_vcf(tmp_path):
     import sys
 
     from fixtures import write_tabix
-    from demuxlet_tpu.io.vcf import VcfReader
+    from demuxlet_jax.io.vcf import VcfReader
 
     rng = random.Random(37)
     contigs, names, variants, reads, truth = random_workload(
@@ -536,7 +536,7 @@ def test_two_process_genome_sharded_cli_indexed_vcf(tmp_path):
         port = s.getsockname()[1]
     coord = f"127.0.0.1:{port}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu.cli", "--sam", bam,
+        [sys.executable, "-m", "demuxlet_jax.cli", "--sam", bam,
          "--vcf", gz, "--field", "GT",
          "--out", str(tmp_path / "dist"), "--device", "cpu",
          "--mesh", "none", "--num-shards", "2", "--shard-id", str(k),
@@ -559,20 +559,13 @@ def test_two_process_genome_sharded_cli_indexed_vcf(tmp_path):
 
 @pytest.mark.slow
 def test_two_process_distributed_tiled_pool(tmp_path):
-    """Multi-host at a TILED pool size (V=16 > the unroll cap), two ways:
+    """Multi-host at a large pool size (V=16), two ways:
 
-    1. Single-process runs with --exact-kernel pallas restricted to each
-       crc32 stripe (--group-list of mh.owns_barcode, reproducing a
-       distributed shard's exact block composition) must be
-       byte-identical to the unsharded XLA-f64 reference rows — the
-       tiled df32 kernels on per-shard blocks.
-    2. A real 2-process jax.distributed run (default kernel: XLA f64 on
-       CPU — the pallas interpret compile under jax.distributed cannot
-       be pre-cached, its compile key differs per topology, and a shard
-       compiling past the shutdown-barrier timeout is killed mid-compile)
-       must be byte-identical to the reference. On TPU the same
-       distributed path auto-selects the pallas kernels; their per-shard
-       block behavior is what part 1 pins."""
+    1. Single-process runs restricted to each crc32 stripe (--group-list
+       of mh.owns_barcode, reproducing a distributed shard's exact block
+       composition) must be byte-identical to the unsharded rows.
+    2. A real 2-process jax.distributed run must be byte-identical to
+       the reference."""
     import socket
     import subprocess
     import sys
@@ -604,8 +597,7 @@ def test_two_process_distributed_tiled_pool(tmp_path):
         glist = str(tmp_path / f"stripe{k}.txt")
         with open(glist, "w") as fh:
             fh.write("\n".join(stripe) + "\n")
-        _run_cli(common + ["--exact-kernel", "pallas",
-                           "--out", str(tmp_path / f"solo{k}"),
+        _run_cli(common + ["--out", str(tmp_path / f"solo{k}"),
                            "--group-list", glist], env, timeout=1800)
         from parity_utils import canonicalize_best
 
@@ -616,8 +608,8 @@ def test_two_process_distributed_tiled_pool(tmp_path):
                 want, got = ref_rows[ext][bc], solo[bc]
                 if ext == ".best":
                     # symmetric alpha=0.5 doublet pair order is an exact
-                    # real-arithmetic tie; df32 and f64 kernels may
-                    # resolve to mirrored pairs (documented contract)
+                    # real-arithmetic tie; blockings may resolve to
+                    # mirrored pairs (documented contract)
                     want = canonicalize_best([want])[0]
                     got = canonicalize_best([got])[0]
                 assert got == want, (k, ext, bc)
@@ -627,7 +619,7 @@ def test_two_process_distributed_tiled_pool(tmp_path):
         port = s.getsockname()[1]
     coord = f"127.0.0.1:{port}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu.cli"] + common +
+        [sys.executable, "-m", "demuxlet_jax.cli"] + common +
         ["--out", str(tmp_path / "dist"), "--num-shards", "2",
          "--shard-id", str(k), "--dist-coordinator", coord],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -654,7 +646,7 @@ def _dist_procs(common, out, coord_n, env, extra=None):
         port = s.getsockname()[1]
     coord = f"127.0.0.1:{port}"
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "demuxlet_tpu.cli"] + common +
+        [sys.executable, "-m", "demuxlet_jax.cli"] + common +
         ["--out", out, "--num-shards", str(coord_n), "--shard-id", str(k),
          "--dist-coordinator", coord] + (extra or []),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,

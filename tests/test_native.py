@@ -5,14 +5,14 @@ import random
 import numpy as np
 import pytest
 
-from demuxlet_tpu.host.csr import CsrPileup, build_slots_csr
-from demuxlet_tpu.host.pileup import build_pileup
-from demuxlet_tpu.host.slots import build_slots
-from demuxlet_tpu.io.bam import AlignmentReader
-from demuxlet_tpu.io.vcf import load_snp_table
+from demuxlet_jax.host.csr import CsrPileup, build_slots_csr
+from demuxlet_jax.host.pileup import build_pileup
+from demuxlet_jax.host.slots import build_slots
+from demuxlet_jax.io.bam import AlignmentReader
+from demuxlet_jax.io.vcf import load_snp_table
 from fixtures import SimRead, SimVariant, random_workload, write_bam, write_vcf
 
-native = pytest.importorskip("demuxlet_tpu.native.ingest")
+native = pytest.importorskip("demuxlet_jax.native.ingest")
 
 if not native.available():
     pytest.skip("native ingest not built", allow_module_level=True)
@@ -85,7 +85,7 @@ def test_native_filters(tmp_path):
 
 def test_csr_engine_same_output(tmp_path):
     """Engine over native CSR == engine over Python dict pileup."""
-    from demuxlet_tpu.models.engine import DemuxEngine
+    from demuxlet_jax.models.engine import DemuxEngine
 
     bam, table = _workload(tmp_path, seed=13)
     csr_n, _ = native.build_pileup(bam, table)
@@ -149,7 +149,7 @@ def test_native_adversarial_cigars_and_flags(tmp_path):
     """Edge battery: SNP at pos 0 and chromosome end, D/N/I/S/H spanning
     SNPs, excluded flags (unmapped/duplicate), low MQ, missing CB/UB tags —
     native must equal Python byte-for-byte."""
-    from demuxlet_tpu.host.csr import CsrPileup
+    from demuxlet_jax.host.csr import CsrPileup
 
     contigs = [("chr1", 50000)]
     names = ["S0", "S1"]
@@ -256,8 +256,8 @@ def _multi_chrom_workload(tmp_path, seed=19, n_chroms=3, index=True):
 def test_native_genome_region_shards_union(tmp_path):
     """BAI-seeked region ingest: N genome shards' pileups merge (obs concat,
     counters sum) to the unsharded pileup exactly."""
-    from demuxlet_tpu.io.vcf import filter_snp_table, load_snp_table
-    from demuxlet_tpu.utils.intervals import split_genome_shards
+    from demuxlet_jax.io.vcf import filter_snp_table, load_snp_table
+    from demuxlet_jax.utils.intervals import split_genome_shards
 
     vcf, bam, contigs = _multi_chrom_workload(tmp_path)
     table = load_snp_table(vcf, field_name="GT")
@@ -311,8 +311,8 @@ def test_native_csi_index_fallback(tmp_path):
     (sam_filtered_reader.cpp via hts_idx_load reads either flavor)."""
     import os
 
-    from demuxlet_tpu.io.vcf import filter_snp_table, load_snp_table
-    from demuxlet_tpu.utils.intervals import split_genome_shards
+    from demuxlet_jax.io.vcf import filter_snp_table, load_snp_table
+    from demuxlet_jax.utils.intervals import split_genome_shards
 
     (tmp_path / "a").mkdir()
     (tmp_path / "b").mkdir()
@@ -349,7 +349,7 @@ def test_native_mid_chromosome_region_split(tmp_path):
     Also covers the BAI linear-index region seek (fixtures write a .bai)."""
     import random
 
-    from demuxlet_tpu.io.vcf import filter_snp_table, load_snp_table
+    from demuxlet_jax.io.vcf import filter_snp_table, load_snp_table
     from fixtures import random_workload, write_bam, write_vcf
 
     rng = random.Random(23)
@@ -406,8 +406,8 @@ def test_native_cram_crai_region_seek(tmp_path):
     sys.path.insert(0, str(pathlib.Path(__file__).parent))
     from test_cram import _genome
 
-    from demuxlet_tpu.io.vcf import filter_snp_table, load_snp_table
-    from demuxlet_tpu.utils.intervals import split_genome_shards
+    from demuxlet_jax.io.vcf import filter_snp_table, load_snp_table
+    from demuxlet_jax.utils.intervals import split_genome_shards
     from fixtures import SimRead, SimVariant, write_cram, write_vcf
 
     rng = random.Random(31)
@@ -469,6 +469,7 @@ def test_native_cram_crai_region_seek(tmp_path):
 @pytest.mark.parametrize("kw", [
     dict(method=0),
     dict(method=2),
+    dict(method=3),
     dict(method=4, core_codecs=True, slices=2),
 ])
 def test_native_cram_matches_python(tmp_path, kw):
@@ -480,11 +481,11 @@ def test_native_cram_matches_python(tmp_path, kw):
     sys.path.insert(0, str(pathlib.Path(__file__).parent))
     from test_cram import _workload
 
-    from demuxlet_tpu.host.csr import CsrPileup
-    from demuxlet_tpu.host.pileup import build_pileup as py_build
-    from demuxlet_tpu.host.slots import build_slots
-    from demuxlet_tpu.io.cram import CramReader
-    from demuxlet_tpu.io.vcf import load_snp_table
+    from demuxlet_jax.host.csr import CsrPileup
+    from demuxlet_jax.host.pileup import build_pileup as py_build
+    from demuxlet_jax.host.slots import build_slots
+    from demuxlet_jax.io.cram import CramReader
+    from demuxlet_jax.io.vcf import load_snp_table
 
     vcf, bam, cram = _workload(tmp_path, seed=47, **kw)
     table = load_snp_table(vcf, field_name="GT")
@@ -507,7 +508,7 @@ def _edge_csr(nv=3):
     (the Python path leaves 255 at the dropped position; the C path
     compacts — multiset-equal), a slot-id delta > 255 (sparse fix), and
     BQ above the cap."""
-    from demuxlet_tpu.host.csr import CsrPileup
+    from demuxlet_jax.host.csr import CsrPileup
 
     obs = [
         # cell 0: snps 5 (2 umis), 6 (allele2 then valid: hole), 400 (fix)
@@ -534,9 +535,9 @@ def test_native_prep_matches_python():
     identical codes arrays (incl. 255 holes at dropped allele==2 lane
     positions and the U bucket), d8/base/fixes — so device results match
     exactly in both modes on any host."""
-    from demuxlet_tpu.host.csr import build_codes_block
-    from demuxlet_tpu.models.engine import DemuxEngine
-    from demuxlet_tpu.native import prep as nprep
+    from demuxlet_jax.host.csr import build_codes_block
+    from demuxlet_jax.models.engine import DemuxEngine
+    from demuxlet_jax.native import prep as nprep
 
     if not nprep.available():
         import pytest
@@ -573,11 +574,11 @@ def test_native_prep_engine_bytes(tmp_path):
     codes, so compaction cannot change any bit)."""
     import random
 
-    from demuxlet_tpu.host.pileup import build_pileup
-    from demuxlet_tpu.io.bam import AlignmentReader
-    from demuxlet_tpu.io.vcf import load_snp_table
-    from demuxlet_tpu.models.engine import DemuxEngine
-    from demuxlet_tpu.native import prep as nprep
+    from demuxlet_jax.host.pileup import build_pileup
+    from demuxlet_jax.io.bam import AlignmentReader
+    from demuxlet_jax.io.vcf import load_snp_table
+    from demuxlet_jax.models.engine import DemuxEngine
+    from demuxlet_jax.native import prep as nprep
     from fixtures import random_workload, write_bam, write_vcf
 
     if not nprep.available():
@@ -598,7 +599,7 @@ def test_native_prep_engine_bytes(tmp_path):
         import os as _os
 
         if force_py:
-            _os.environ["DEMUX_TPU_NO_NATIVE_PREP"] = "1"
+            _os.environ["DEMUX_NO_NATIVE_PREP"] = "1"
         # reset the module's load cache so the env var takes effect
         nprep._LIB, nprep._LOAD_FAILED = None, False
         try:
@@ -606,7 +607,7 @@ def test_native_prep_engine_bytes(tmp_path):
                               mode="fast")
             return eng.run_compact(scl, doublet_prior=0.5)
         finally:
-            _os.environ.pop("DEMUX_TPU_NO_NATIVE_PREP", None)
+            _os.environ.pop("DEMUX_NO_NATIVE_PREP", None)
             nprep._LIB, nprep._LOAD_FAILED = None, False
 
     ln, l0n, cn = run(False)

@@ -6,10 +6,10 @@ import random
 import numpy as np
 import pytest
 
-from demuxlet_tpu.models import outputs as out_mod
-from demuxlet_tpu.models.decision import CompactResult
+from demuxlet_jax.models import outputs as out_mod
+from demuxlet_jax.models.decision import CompactResult
 
-render = pytest.importorskip("demuxlet_tpu.native.render")
+render = pytest.importorskip("demuxlet_jax.native.render")
 
 if not render.available():
     pytest.skip("native render not built", allow_module_level=True)
@@ -71,7 +71,7 @@ def test_native_render_byte_parity(seed, degenerate, filters):
     # FORCE the Python fallback — write_pass2_compact delegates to the
     # native renderer when available, which would make this comparison
     # native-vs-native (vacuous)
-    import demuxlet_tpu.native.render as nr
+    import demuxlet_jax.native.render as nr
     orig = nr.available
     nr.available = lambda: False
     try:
@@ -106,7 +106,7 @@ def test_native_render_single_byte_parity(seed, degenerate, filters):
     sample_ids = [f"SM{i}" for i in range(nv)]
 
     pf = io.StringIO()
-    import demuxlet_tpu.native.render as nr
+    import demuxlet_jax.native.render as nr
     orig = nr.available
     nr.available = lambda: False  # force the Python fallback
     try:

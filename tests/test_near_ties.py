@@ -2,8 +2,8 @@
 
 llkAB[j,k,0.5] and llkAB[k,j,0.5] are EXACT ties in real arithmetic
 (p(l,m;0.5) is symmetric), so which mirror an argmax picks is decided by
-the last ulp of whichever kernel computed it — f32 fast, f64 XLA and
-df32 pallas can each legitimately disagree. The documented contract
+the last ulp of whichever kernel computed it — f32 fast and f64 exact
+can legitimately disagree. The documented contract
 (tests/parity_utils.canonicalize_best, cli --mode help) is that .best
 rows must be compared after canonicalizing the mirror order. This test
 constructs the disagreement explicitly and pins that the
@@ -14,8 +14,8 @@ import io
 
 import numpy as np
 
-from demuxlet_tpu.models import outputs as out_mod
-from demuxlet_tpu.models.outputs import CellStats
+from demuxlet_jax.models import outputs as out_mod
+from demuxlet_jax.models.outputs import CellStats
 from parity_utils import canonicalize_best
 
 
@@ -79,7 +79,7 @@ def test_fast_vs_exact_on_symmetric_doublets(tmp_path):
     must match."""
     import random
 
-    from demuxlet_tpu import cli
+    from demuxlet_jax import cli
     from fixtures import random_workload, write_bam, write_vcf
 
     rng = random.Random(53)

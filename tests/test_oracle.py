@@ -1,5 +1,5 @@
 """NumPy-oracle unit tests: hand-computed likelihoods + the structural
-properties the TPU reformulation relies on (SURVEY.md §4 'unit')."""
+properties the dense reformulation relies on (SURVEY.md §4 'unit')."""
 
 import math
 import random
@@ -7,7 +7,7 @@ import random
 import numpy as np
 import pytest
 
-from demuxlet_tpu.utils.phred import PHRED2ERR, PHRED2MAT
+from demuxlet_jax.utils.phred import PHRED2ERR, PHRED2MAT
 from oracle.numpy_oracle import (
     PileupData,
     compute_gp0s,
@@ -92,7 +92,7 @@ def test_alpha0_column_equals_singlet_pairing():
 
 def test_umi_order_invariance_modulo_rounding():
     """Per-UMI renormalization telescopes: processing order changes results
-    only at ~1e-12 (this is what lets the TPU engine use counts)."""
+    only at ~1e-12 (this is what lets the device engine use counts)."""
     scl1 = _random_pileup(2)
     gp0s = compute_gp0s(scl1)
     llks1, _ = pass1_singlet(scl1, gp0s)

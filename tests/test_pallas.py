@@ -1,26 +1,61 @@
-"""Pallas fast-mode kernel vs the exact f64 XLA path (interpret mode on CPU)."""
+"""Fast-mode block step: the Pallas-Triton pair kernel (interpret mode on
+CPU) and the plain XLA f32 route vs the exact f64 contraction."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from demuxlet_tpu.models.likelihood import pair_llks
-from demuxlet_tpu.ops import luts
-from demuxlet_tpu.ops.pallas_pair import pack_block, pair_llks_pallas
+from demuxlet_jax.models.likelihood import pair_llks, singlet_llks
+from demuxlet_jax.ops import luts
+from demuxlet_jax.ops.pallas_pair import (
+    dedup_channels,
+    demux_block_fast,
+    extend_luts,
+    plan_tiles,
+)
 
 
-def _case(B, S, V, A, seed=0):
+def _codes_case(B, S, V, grid, U=2, NS=50, seed=0):
+    """A codes-path block (the engine's fast-mode input) plus its dense
+    f64 reference tensors: per-UMI codes -> counts, gathered gps rows,
+    masked slots neutral."""
     rng = np.random.default_rng(seed)
-    nb = 82
-    cnt = rng.integers(0, 3, size=(B, S, nb)).astype(np.int32)
+    codes = rng.integers(0, 82, size=(B, S, U)).astype(np.uint8)
+    codes[rng.random((B, S, U)) < 0.3] = 255
+    idx = rng.integers(0, NS, size=(B, S)).astype(np.int32)
     msk = rng.random((B, S)) < 0.8
-    cnt *= msk[:, :, None]
-    gps = rng.dirichlet(np.ones(3), size=(B, S, V))
-    gp0 = gps.mean(axis=2)
-    grid = np.linspace(0, 0.5, A).tolist()
-    w = luts.pair_lut(grid, 40)
-    return cnt, msk, gps, gp0, w
+    codes[~msk] = 255  # build_codes_block contract: masked slots empty
+    gtab = rng.dirichlet(np.ones(3), size=(NS, V)).astype(np.float32)
+    g0tab = gtab.mean(axis=1)
+    cnt = np.zeros((B, S, 82), dtype=np.int32)
+    for u in range(U):
+        cu = codes[..., u]
+        ok = cu != 255
+        bi, si = np.nonzero(ok)
+        np.add.at(cnt, (bi, si, cu[ok].astype(np.int64)), 1)
+    neutral = np.array([1.0, 0.0, 0.0])
+    gps_g = np.where(msk[..., None, None], gtab.astype(np.float64)[idx],
+                     neutral)
+    gp0_g = np.where(msk[..., None], g0tab.astype(np.float64)[idx], neutral)
+    return (codes, idx, msk, gtab, g0tab), (cnt, msk, gps_g, gp0_g)
+
+
+def _fast(dev, V, grid, opt, **kw):
+    cols, expand = dedup_channels(grid)
+    w_ext, logf_ext = extend_luts(
+        luts.pair_lut(grid, 40)[:, list(cols)], luts.singlet_lut(40))
+    args = tuple(jnp.asarray(x) for x in dev) + (
+        jnp.asarray(w_ext), jnp.asarray(logf_ext))
+    return demux_block_fast(
+        *args, len(grid), V, expand=expand,
+        a0_sep=opt and grid[0] == 0.0,
+        sym_a=grid.index(0.5) if opt and 0.5 in grid else None, **kw)
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return (np.abs(got - ref) / np.maximum(1.0, np.abs(ref))).max()
 
 
 @pytest.mark.parametrize(
@@ -28,63 +63,88 @@ def _case(B, S, V, A, seed=0):
     [
         (4, 64, 3, 2, False),
         (6, 100, 4, 3, False),
-        # S=200 pads to 256 -> even slot-tile count -> the paired-lane
-        # log path (halves == 2); opt also turns on a0_sep + sym_a
+        # S=200 is no multiple of the kernel's slot step: neutral slot
+        # padding inside the kernel wrapper; opt turns on a0_sep + sym_a
         (4, 200, 3, 2, True),
         (6, 100, 4, 3, True),
-        # V*V*A > _UNROLL_CAP -> the (j,k)-TILED kernel (round-3 verdict
-        # #1: V=16-64 pools; trace time / VMEM flat in V). 16: exact tile
-        # fit; 17: sample-axis padding (Vp=24, neutral rows dropped at
-        # reassembly); 32 triangular default grid.
+        # V=16: two 8-sample tiles per axis; 17: sample-axis padding
+        # (Vp=24, neutral rows dropped at reassembly); 32 triangular
+        # default grid
         (4, 64, 16, 2, False),
         (4, 200, 17, 3, True),
         (4, 64, 32, 2, True),
-        # single-point alpha=0 grid past the unroll cap: no tiled
-        # channels at all — the extras-only path carries the result
+        # single-point alpha=0 grid: no kernel planes at all — the
+        # separable plane carries the whole result
         (4, 64, 20, 1, True),
-        # triangular AND sample-padded (advisor r4 #3): V=20 on the
-        # default [0, 0.5] grid -> Vp=24, upper-triangle tiles whose
-        # diagonal tri tiles contain neutral padded rows; mirror-fill
-        # must interact correctly with the dropped padded channels
+        # triangular AND sample-padded: V=20 on the default [0, 0.5]
+        # grid -> Vp=24, upper-triangle tiles with neutral padded rows
         (4, 64, 20, 2, True),
     ],
 )
 def test_pallas_matches_exact(B, S, V, A, opt):
-    cnt, msk, gps, gp0, w = _case(B, S, V, A)
+    """The Triton kernel route (interpret mode) against the exact f64
+    contraction, within fast mode's stated 1e-4 relative contract."""
+    grid = np.linspace(0, 0.5, A).tolist()
+    dev, (cnt, msk, gps_g, gp0_g) = _codes_case(B, S, V, grid)
     ref_ab, ref_00 = pair_llks(
-        jnp.asarray(cnt), jnp.asarray(msk), jnp.asarray(gps),
-        jnp.asarray(gp0), jnp.asarray(w), A,
+        jnp.asarray(cnt), jnp.asarray(msk), jnp.asarray(gps_g),
+        jnp.asarray(gp0_g), jnp.asarray(luts.pair_lut(grid, 40)), A,
     )
-    cnt_t, gps_t, wt = pack_block(cnt, msk, gps, w)
-    ab, z0 = pair_llks_pallas(
-        jnp.asarray(cnt_t), jnp.asarray(gps_t), jnp.asarray(wt), A, V,
-        interpret=True, a0_sep=opt,
-        sym_a=A - 1 if opt and A > 1 else None,
+    ref_l, ref_l0 = singlet_llks(
+        jnp.asarray(cnt), jnp.asarray(msk), jnp.asarray(gps_g),
+        jnp.asarray(gp0_g), jnp.asarray(luts.singlet_lut(40)),
     )
-    scale = np.maximum(1.0, np.abs(np.asarray(ref_ab)))
-    err = np.abs(np.asarray(ab)[:B] - np.asarray(ref_ab)) / scale
-    assert err.max() < 2e-5, err.max()
-    err0 = np.abs(np.asarray(z0)[:B] - np.asarray(ref_00)) / np.maximum(
-        1.0, np.abs(np.asarray(ref_00))
-    )
-    assert err0.max() < 2e-5
+    llk, llk0, ab, z0 = _fast(dev, V, grid, opt, pair_impl="triton",
+                              interpret=True)
+    assert ab.shape == (B, V, V, A) and z0.shape == (B, A)
+    assert _rel(ab, ref_ab) < 1e-4
+    assert _rel(z0, ref_00) < 1e-4
+    assert _rel(llk, ref_l) < 1e-4
+    assert _rel(llk0, ref_l0) < 1e-4
+
+
+@pytest.mark.parametrize(
+    "B,S,V,grid,cfg",
+    [
+        # odd V, cells no TB multiple, slots no (TS * log_batch) multiple
+        (5, 40, 1, [0.0, 0.5], ()),
+        (3, 72, 3, [0.0, 0.5], ()),
+        (9, 33, 5, [0.0, 0.25, 0.5], ()),
+        (7, 50, 9, [0.0, 0.5], (("TB", 4), ("TS", 16))),
+        (4, 64, 11, [0.1, 0.5], (("log_batch", 1),)),
+        (4, 64, 6, [0.0, 0.1, 0.2, 0.3, 0.5], (("kt_max", 4),)),
+        (2, 128, 17, [0.0, 0.5], (("min_programs", 1),)),
+        (6, 96, 4, [0.2, 0.3], (("num_warps", 2),)),
+    ],
+)
+def test_triton_kernel_matches_plain_f32(B, S, V, grid, cfg):
+    """Kernel (interpret mode) vs the plain f32 XLA contraction through
+    the same front: they differ only in summation and log-batching
+    order, |err| <= 1e-5 * max(1, |ref|)."""
+    dev, _ = _codes_case(B, S, V, grid, seed=B + V)
+    ref = _fast(dev, V, grid, True, pair_impl="xla")
+    got = _fast(dev, V, grid, True, pair_impl="triton", interpret=True,
+                kernel_cfg=cfg)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert _rel(g, r) < 1e-5
 
 
 def test_plan_pair_tiles_shapes():
-    """Tile-plan invariants: small pools stay unrolled; the default
-    [0, 0.5] grid enumerates only upper-triangle tiles; padded sample
-    counts round up to the tile size."""
-    from demuxlet_tpu.ops.pallas_pair import plan_pair_tiles
-
-    assert plan_pair_tiles(8, 5, True, 4) is None  # 320 <= cap
+    """Tile-plan invariants: the tile is the smallest power of two that
+    covers small pools; the default [0, 0.5] grid enumerates only upper-
+    triangle tiles; padded sample counts round up to the tile size."""
+    assert plan_tiles(2, 2, True, 1) == (2, 2, ((0, 0),), (1,))
+    assert plan_tiles(5, 5, True, 4)[:2] == (8, 8)
     # V=32 default grid: a0_sep leaves only the symmetric alpha=0.5 plane
-    Jt, Kt, Vp, tiles, ac_list, tri = plan_pair_tiles(32, 2, True, 1)
-    assert (Jt, Kt, Vp) == (16, 16, 32) and ac_list == [1] and tri
-    assert tiles == [(0, 0), (0, 1), (1, 1)]
-    # V=17 pads to 24 with 8x8 tiles; 5-alpha grid tiles all of a>=1
-    Jt, Kt, Vp, tiles, ac_list, tri = plan_pair_tiles(17, 5, True, 4)
-    assert (Jt, Kt, Vp) == (8, 8, 24) and ac_list == [1, 2, 3, 4]
-    assert not tri and len(tiles) == 9
+    Kt, Vp, tiles, ac_list = plan_tiles(32, 2, True, 1)
+    assert (Kt, Vp, ac_list) == (8, 32, (1,))
+    assert len(tiles) == 10 and all(j <= k for j, k in tiles)
+    # V=17 pads to 24; a 5-alpha grid tiles all of a>=1 on the full square
+    Kt, Vp, tiles, ac_list = plan_tiles(17, 5, True, 4)
+    assert (Kt, Vp, ac_list) == (8, 24, (1, 2, 3, 4)) and len(tiles) == 9
+    # no separable plane: every alpha is a kernel plane
+    assert plan_tiles(4, 2, False, 1)[3] == (0, 1)
 
 
 def test_engine_fast_vs_exact_tiled_pool(tmp_path):
@@ -92,10 +152,10 @@ def test_engine_fast_vs_exact_tiled_pool(tmp_path):
     fast-mode LLKs match the XLA f64 exact path within fast tolerance."""
     import random
 
-    from demuxlet_tpu.host.pileup import build_pileup
-    from demuxlet_tpu.io.bam import AlignmentReader
-    from demuxlet_tpu.io.vcf import load_snp_table
-    from demuxlet_tpu.models.engine import DemuxEngine
+    from demuxlet_jax.host.pileup import build_pileup
+    from demuxlet_jax.io.bam import AlignmentReader
+    from demuxlet_jax.io.vcf import load_snp_table
+    from demuxlet_jax.models.engine import DemuxEngine
     from fixtures import random_workload, write_bam, write_vcf
 
     rng = random.Random(21)
@@ -122,11 +182,11 @@ def test_fast_engine_same_calls(tmp_path):
     """Fast-mode engine produces identical .best calls on a synthetic run."""
     import random
 
-    from demuxlet_tpu.host.pileup import build_pileup
-    from demuxlet_tpu.io.bam import AlignmentReader
-    from demuxlet_tpu.io.vcf import load_snp_table
-    from demuxlet_tpu.models.engine import DemuxEngine, cell_stats
-    from demuxlet_tpu.models import outputs as out_mod
+    from demuxlet_jax.host.pileup import build_pileup
+    from demuxlet_jax.io.bam import AlignmentReader
+    from demuxlet_jax.io.vcf import load_snp_table
+    from demuxlet_jax.models.engine import DemuxEngine, cell_stats
+    from demuxlet_jax.models import outputs as out_mod
     from fixtures import random_workload, write_bam, write_vcf
 
     rng = random.Random(5)
@@ -171,11 +231,11 @@ def test_compact_decision_path_bytes(tmp_path):
     import io
     import random
 
-    from demuxlet_tpu.host.pileup import build_pileup
-    from demuxlet_tpu.io.bam import AlignmentReader
-    from demuxlet_tpu.io.vcf import load_snp_table
-    from demuxlet_tpu.models import outputs as out_mod
-    from demuxlet_tpu.models.engine import DemuxEngine, cell_stats
+    from demuxlet_jax.host.pileup import build_pileup
+    from demuxlet_jax.io.bam import AlignmentReader
+    from demuxlet_jax.io.vcf import load_snp_table
+    from demuxlet_jax.models import outputs as out_mod
+    from demuxlet_jax.models.engine import DemuxEngine, cell_stats
     from fixtures import random_workload, write_bam, write_vcf
 
     rng = random.Random(8)
@@ -219,7 +279,7 @@ def test_allele2_only_slot_keeps_uniform_gl_term():
 
     import numpy as np
 
-    from demuxlet_tpu.models.engine import DemuxEngine
+    from demuxlet_jax.models.engine import DemuxEngine
     from oracle.numpy_oracle import PileupData, compute_gp0s, pass1_singlet
 
     rng = random.Random(11)

@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from demuxlet_tpu.models.likelihood import pair_llks, singlet_llks
-from demuxlet_tpu.parallel import mesh as pmesh
+from demuxlet_jax.models.likelihood import pair_llks, singlet_llks
+from demuxlet_jax.parallel import mesh as pmesh
 
 
 def _block(B, S, V, A, seed=0):
-    from demuxlet_tpu.ops import luts
+    from demuxlet_jax.ops import luts
 
     rng = np.random.default_rng(seed)
     nb = 2 * 41
@@ -81,64 +81,14 @@ def test_dryrun_multichip_entry():
     g.dryrun_multichip(8)
 
 
-def test_sharded_exact_compact_matches_single_device():
-    """Exact-mode df32 kernel + device decision pass under shard_map over
-    'b' == the single-device demux_block_exact_compact exactly (every
-    decision op is per-cell)."""
+@pytest.mark.parametrize("pair_impl", ["xla", "triton"])
+def test_sharded_fast_step_matches_single_device(pair_impl):
+    """Fast-mode step under shard_map over 'b' == single device, for both
+    pair-search implementations (the kernel in interpret mode)."""
     if len(jax.devices()) < 4:
         pytest.skip("needs virtual devices")
-    from demuxlet_tpu.models import decision as D
-    from demuxlet_tpu.ops import luts
-    from demuxlet_tpu.ops import pallas_pair_exact as PE
-
-    rng = np.random.default_rng(7)
-    B, S, U, V, A, NS = 32, 128, 2, 3, 2, 50
-    codes = rng.integers(0, 82, size=(B, S, U)).astype(np.uint8)
-    codes[rng.random((B, S, U)) < 0.3] = 255
-    idx = rng.integers(0, NS, size=(B, S)).astype(np.int32)
-    msk = rng.random((B, S)) < 0.9
-    codes[~msk] = 255
-    gps = rng.dirichlet(np.ones(3), size=(NS, V))
-    gp0 = gps.mean(axis=1)
-    grid = [0.0, 0.5]
-    w = luts.pair_lut(grid, 40)
-    logf = luts.singlet_lut(40)
-    gps_pair, gp0_pair, tabs, meta = PE.split_tables(gps, gp0, w, logf)
-    gps_pair = tuple(map(jnp.asarray, gps_pair))
-    gp0_pair = tuple(map(jnp.asarray, gp0_pair))
-    tabs = tuple(map(jnp.asarray, tabs))
-    dbl_w = jnp.asarray(D.doublet_weights(V, grid, 0.5))
-    dbl_msk = jnp.asarray(D.doublet_mask(V, A))
-
-    ref = D.demux_block_exact_compact(
-        jnp.asarray(codes), jnp.asarray(idx), jnp.asarray(msk),
-        gps_pair, gp0_pair, tabs, dbl_w, dbl_msk, meta, A, V, 0.5,
-        interpret=True, a0_zero=True, sym_a=1,
-    )
-    mesh = pmesh.make_mesh(n_b=4, n_s=1)
-    step = pmesh.build_sharded_exact_compact_step(
-        mesh, meta, A, V, 0.5, interpret=True, a0_zero=True, sym_a=1
-    )
-    out = step(
-        jnp.asarray(codes), jnp.asarray(idx), jnp.asarray(msk),
-        gps_pair[0], gps_pair[1], gp0_pair[0], gp0_pair[1],
-        tabs[0], tabs[1], tabs[2], tabs[3], dbl_w, dbl_msk,
-    )
-    a, b = np.asarray(out), np.asarray(ref)
-    # integer decision fields (argmaxes) must agree exactly; float fields
-    # to the exact-mode 1e-9 contract (the two compiles fuse the df front
-    # differently at the ~1e-13 double-rounding level)
-    for col in (V + A + 3, V + A + 4, V + A + 6):  # i_sing1, i_sing2, best
-        np.testing.assert_array_equal(a[:, col], b[:, col])
-    np.testing.assert_allclose(a, b, rtol=1e-9, atol=0)
-
-
-def test_sharded_fast_step_matches_single_device():
-    """Fast-mode Pallas step under shard_map over 'b' == single device."""
-    if len(jax.devices()) < 4:
-        pytest.skip("needs virtual devices")
-    from demuxlet_tpu.ops import luts
-    from demuxlet_tpu.ops.pallas_pair import demux_block_fast, extend_luts
+    from demuxlet_jax.ops import luts
+    from demuxlet_jax.ops.pallas_pair import demux_block_fast, extend_luts
 
     rng = np.random.default_rng(3)
     B, S, U, V, A, NS = 128, 128, 2, 4, 3, 50
@@ -155,10 +105,11 @@ def test_sharded_fast_step_matches_single_device():
     args = tuple(
         jnp.asarray(x) for x in (codes, idx, msk, gps, gp0, w_ext, logf_ext)
     )
-    ref = demux_block_fast(*args, A, V, interpret=True)
+    kw = dict(pair_impl=pair_impl, interpret=pair_impl == "triton")
+    ref = demux_block_fast(*args, A, V, **kw)
 
     mesh = pmesh.make_mesh(n_b=4, n_s=1)
-    step = pmesh.build_sharded_fast_step(mesh, A, V, interpret=True)
+    step = pmesh.build_sharded_fast_step(mesh, A, V, **kw)
     out = step(*args)
     for a, b in zip(out, ref):
         np.testing.assert_allclose(
@@ -168,15 +119,14 @@ def test_sharded_fast_step_matches_single_device():
 
 @pytest.mark.slow
 def test_mesh_fast_step_tiled_pool():
-    """Sharded fast step at a TILED pool size (V=16 > the unroll cap):
-    the scalar-prefetch pair-tiled kernel must compose with shard_map
-    over the barcode axis — per-shard results equal the single-device
-    kernel's."""
+    """Sharded fast step at a multi-tile pool size (V=16): the pair-tiled
+    kernel must compose with shard_map over the barcode axis — per-shard
+    results equal the single-device kernel's."""
     import jax.numpy as jnp
 
-    from demuxlet_tpu.parallel import mesh as pmesh
-    from demuxlet_tpu.ops import luts
-    from demuxlet_tpu.ops.pallas_pair import demux_block_fast, extend_luts
+    from demuxlet_jax.parallel import mesh as pmesh
+    from demuxlet_jax.ops import luts
+    from demuxlet_jax.ops.pallas_pair import demux_block_fast, extend_luts
 
     rng = np.random.default_rng(9)
     B, S, U, V, A, NS = 128, 128, 2, 16, 2, 50
@@ -193,11 +143,10 @@ def test_mesh_fast_step_tiled_pool():
     args = tuple(
         jnp.asarray(x) for x in (codes, idx, msk, gps, gp0, w_ext, logf_ext)
     )
-    ref = demux_block_fast(*args, A, V, interpret=True,
-                           a0_sep=True, sym_a=A - 1)
+    kw = dict(pair_impl="triton", interpret=True, a0_sep=True, sym_a=A - 1)
+    ref = demux_block_fast(*args, A, V, **kw)
     mesh = pmesh.make_mesh(n_b=4, n_s=1)
-    step = pmesh.build_sharded_fast_step(mesh, A, V, interpret=True,
-                                         a0_sep=True, sym_a=A - 1)
+    step = pmesh.build_sharded_fast_step(mesh, A, V, **kw)
     out = step(*args)
     for a, b in zip(out, ref):
         np.testing.assert_allclose(

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from demuxlet_tpu.utils.phred import PHRED2ERR, PHRED2MAT, PHRED2PROB, to_prob
+from demuxlet_jax.utils.phred import PHRED2ERR, PHRED2MAT, PHRED2PROB, to_prob
 
 
 def test_q0_q1_quirk():

@@ -5,9 +5,9 @@
 import numpy as np
 import pytest
 
-from demuxlet_tpu.io.bam import READ_INDEX_NA, AlignedRead, AlignmentReader
-from demuxlet_tpu.io.vcf import load_snp_table
-from demuxlet_tpu.host.pileup import build_pileup
+from demuxlet_jax.io.bam import READ_INDEX_NA, AlignedRead, AlignmentReader
+from demuxlet_jax.io.vcf import load_snp_table
+from demuxlet_jax.host.pileup import build_pileup
 from fixtures import SimRead, SimVariant, write_bam, write_sam, write_vcf
 
 
@@ -253,7 +253,7 @@ class TestLongCigarCG:
         assert len(scl_p.umis) > 0  # the workload actually covers SNPs
 
     def test_native_reader_restores_cg(self, tmp_path):
-        native = pytest.importorskip("demuxlet_tpu.native.ingest")
+        native = pytest.importorskip("demuxlet_jax.native.ingest")
         if not native.available():
             pytest.skip("native ingest not built")
         vcf, plain = self._workload(tmp_path, cg=False)

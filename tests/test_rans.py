@@ -4,7 +4,7 @@ import random
 
 import pytest
 
-from demuxlet_tpu.io import rans
+from demuxlet_jax.io import rans
 
 
 CASES = [

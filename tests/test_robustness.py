@@ -5,10 +5,10 @@ import random
 
 import pytest
 
-from demuxlet_tpu.io.bcf import BcfReader
-from demuxlet_tpu.io.cram import CramReader
-from demuxlet_tpu.io.vcf import load_snp_table
-from demuxlet_tpu.utils.logging_utils import DemuxError
+from demuxlet_jax.io.bcf import BcfReader
+from demuxlet_jax.io.cram import CramReader
+from demuxlet_jax.io.vcf import load_snp_table
+from demuxlet_jax.utils.logging_utils import DemuxError
 from fixtures import SimVariant, write_bcf, write_cram, write_vcf, SimRead
 
 
@@ -30,7 +30,7 @@ def test_truncated_bcf(tmp_path):
 
     plain = gzip.decompress(raw)
     for cut in (len(plain) - 3, len(plain) // 2, 40):
-        from demuxlet_tpu.io.bgzf import BgzfWriter
+        from demuxlet_jax.io.bgzf import BgzfWriter
 
         p2 = str(tmp_path / f"cut{cut}.bcf")
         with BgzfWriter(open(p2, "wb")) as w:
@@ -87,7 +87,7 @@ def test_garbage_magic(tmp_path):
     with pytest.raises(DemuxError):
         CramReader(p)
     p2 = str(tmp_path / "g.bcf")
-    from demuxlet_tpu.io.bgzf import BgzfWriter
+    from demuxlet_jax.io.bgzf import BgzfWriter
 
     with BgzfWriter(open(p2, "wb")) as w:
         w.write(b"JUNKJUNKJUNK")
@@ -99,8 +99,8 @@ def test_corrupt_bam_bgzf_native(tmp_path):
     """Byte-flipped BGZF payloads in a BAM fail cleanly through the native
     ingest (libdeflate or zlib path) — DemuxError, never a crash/hang."""
     from fixtures import random_workload, write_bam, write_vcf
-    from demuxlet_tpu.io.vcf import load_snp_table
-    from demuxlet_tpu.native import ingest as native
+    from demuxlet_jax.io.vcf import load_snp_table
+    from demuxlet_jax.native import ingest as native
 
     if not native.available():
         pytest.skip("native ingest unavailable")

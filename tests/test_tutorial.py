@@ -11,8 +11,8 @@ import random
 import numpy as np
 import pytest
 
-from demuxlet_tpu import cli
-from demuxlet_tpu.io.vcf import load_snp_table
+from demuxlet_jax import cli
+from demuxlet_jax.io.vcf import load_snp_table
 from fixtures import SimRead, write_bam
 
 TUT_VCF = "/root/reference/tutorial/jurkat_293T_exons_only.vcf.gz"
@@ -36,7 +36,7 @@ def test_tutorial_vcf_pl_missing_errors_like_reference():
     """Some tutorial records lack PL (FORMAT GT:RE:GQ:DP:RS); the reference
     hard-errors 'Cannot parse posterior probability at <pos>'
     (cmd_cram_demuxlet.cpp:211-213) — so do we, at the same record."""
-    from demuxlet_tpu.utils.logging_utils import DemuxError
+    from demuxlet_jax.utils.logging_utils import DemuxError
 
     with pytest.raises(DemuxError, match="Cannot parse posterior"):
         load_snp_table(TUT_VCF, field_name="PL")

@@ -4,8 +4,8 @@ semantics)."""
 import numpy as np
 import pytest
 
-from demuxlet_tpu.host import genotypes as G
-from demuxlet_tpu.io.vcf import load_snp_table
+from demuxlet_jax.host import genotypes as G
+from demuxlet_jax.io.vcf import load_snp_table
 from fixtures import SimVariant, write_vcf
 
 
@@ -156,7 +156,7 @@ def test_chr_pattern_chunked_load(tmp_path):
     chunk files are skipped)."""
     import numpy as np
 
-    from demuxlet_tpu.io.vcf import (
+    from demuxlet_jax.io.vcf import (
         expand_chr_pattern,
         load_snp_table,
         merge_snp_tables,
@@ -192,7 +192,7 @@ def test_beg_end_pattern_chunked_load(tmp_path):
     (:181-202); missing interval files are skipped."""
     import numpy as np
 
-    from demuxlet_tpu.io.vcf import (
+    from demuxlet_jax.io.vcf import (
         expand_chunk_pattern,
         load_snp_table,
         merge_snp_tables,
@@ -226,8 +226,8 @@ def test_beg_end_pattern_chunked_load(tmp_path):
 
 
 def test_beg_without_end_pattern_errors(tmp_path):
-    from demuxlet_tpu.io.vcf import expand_chunk_pattern
-    from demuxlet_tpu.utils.logging_utils import DemuxError
+    from demuxlet_jax.io.vcf import expand_chunk_pattern
+    from demuxlet_jax.utils.logging_utils import DemuxError
 
     import pytest
 
@@ -243,7 +243,7 @@ def test_tabix_region_seek_matches_full_load(tmp_path):
 
     import numpy as np
 
-    from demuxlet_tpu.io.vcf import filter_snp_table, load_snp_table
+    from demuxlet_jax.io.vcf import filter_snp_table, load_snp_table
     from fixtures import SimVariant, write_tabix, write_vcf
 
     rng = random.Random(11)
@@ -293,7 +293,7 @@ def test_corrupt_index_falls_back_cleanly(tmp_path):
 
     import numpy as np
 
-    from demuxlet_tpu.io.vcf import filter_snp_table, load_snp_table
+    from demuxlet_jax.io.vcf import filter_snp_table, load_snp_table
     from fixtures import SimVariant, write_bcf, write_tabix, write_vcf
 
     rng = random.Random(17)

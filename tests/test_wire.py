@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from demuxlet_tpu.host import wire as W
+from demuxlet_jax.host import wire as W
 
 
 def _rand_block(rng, B=36, S=160, U=4, ncodes=12):
@@ -48,7 +48,7 @@ def _cfg(code_vals, code_w=None, delta_w=8, u_cap=2):
 def _device_unpack(wire_buf, meta):
     import jax.numpy as jnp
 
-    from demuxlet_tpu.ops.pallas_pair import unpack_block_inputs
+    from demuxlet_jax.ops.pallas_pair import unpack_block_inputs
 
     c, idx, msk = unpack_block_inputs(jnp.asarray(wire_buf), None, None,
                                       meta)
@@ -149,7 +149,7 @@ def test_pack_bits_roundtrip():
 def test_choose_cfg_widths():
     """Dict width tracks the distinct-code count; delta width tracks the
     sampled gap distribution; u_cap tracks occupancy."""
-    from demuxlet_tpu.host.csr import CsrPileup
+    from demuxlet_jax.host.csr import CsrPileup
 
     rng = np.random.default_rng(1)
     n_cells, spc = 64, 200
@@ -238,21 +238,16 @@ def test_pack_from_shrunk_matches_pack_wire_block():
     np.testing.assert_array_equal(buf_a, buf_b)
 
 
-@pytest.mark.parametrize("mode", [
-    "fast",
-    # the exact arm compiles BOTH df32 interpret variants cold (~15 min
-    # after a pallas edit; cached after) -> slow suite
-    pytest.param("exact", marks=pytest.mark.slow),
-])
+@pytest.mark.parametrize("mode", ["fast"])
 def test_engine_wire_v2_matches_v1(tmp_path, mode):
-    """Engine-level parity: the same pileup through the v1 and v2 wires.
-    Exact (df32 pallas) must be BIT-identical (dict selection is exact);
-    fast agrees to kernel tolerance with identical decisions."""
+    """Engine-level parity: the same pileup through the v1 and v2 wires
+    (the compact path is fast mode's): agreement to kernel tolerance with
+    identical decisions."""
     import jax
 
-    from demuxlet_tpu.host.csr import CsrPileup
-    from demuxlet_tpu.models import decision as D
-    from demuxlet_tpu.models.engine import DemuxEngine
+    from demuxlet_jax.host.csr import CsrPileup
+    from demuxlet_jax.models import decision as D
+    from demuxlet_jax.models.engine import DemuxEngine
 
     rng = np.random.default_rng(17)
     n_cells, NS, V = 48, 300, 3
@@ -261,12 +256,9 @@ def test_engine_wire_v2_matches_v1(tmp_path, mode):
         snps = np.sort(rng.choice(NS, size=40, replace=False))
         for j, s in enumerate(snps):
             # PCR-hot slots (~1 per cell, depth ~18) force deep UMI
-            # lanes: the fast front's tail scatter-add and the exact
-            # reconstruction both run at U >= 16 through the engine
+            # lanes: the fast front's tail scatter-add runs at U >= 16
             depth = 1 + (rng.random() < 0.3) * int(rng.integers(1, 4))
-            if j == 7 and mode == "fast":
-                # deep lanes only on the fast arm: the exact arm's
-                # interpret compile scales with U (slow-suite budget)
+            if j == 7:
                 depth += int(rng.integers(12, 20))
             for _ in range(depth):
                 obs.append((c, s, int(rng.random() < 0.5),
@@ -283,42 +275,31 @@ def test_engine_wire_v2_matches_v1(tmp_path, mode):
     grid = [0.0, 0.5]
 
     def run(wire_env):
-        os.environ["DEMUX_TPU_WIRE"] = wire_env
+        os.environ["DEMUX_WIRE"] = wire_env
         try:
-            eng = DemuxEngine(
-                gps, grid, cell_block=16, mode=mode,
-                exact_kernel="pallas" if mode == "exact" else "auto",
-            )
+            eng = DemuxEngine(gps, grid, cell_block=16, mode=mode)
             llks, llk0s, comp = eng.run_compact(csr, doublet_prior=0.5)
             return llks, llk0s, comp, eng.h2d_bytes
         finally:
-            os.environ.pop("DEMUX_TPU_WIRE", None)
+            os.environ.pop("DEMUX_WIRE", None)
 
     l1, l01, c1, bytes1 = run("v1")
     l2, l02, c2, bytes2 = run("v2")
     assert bytes2 < bytes1, (bytes2, bytes1)
-    if mode == "exact":
-        np.testing.assert_array_equal(l1, l2)
-        np.testing.assert_array_equal(l01, l02)
-        for k in c1.__dict__:
-            np.testing.assert_array_equal(
-                getattr(c1, k), getattr(c2, k), err_msg=k)
-    else:
-        np.testing.assert_allclose(l1, l2, rtol=0, atol=2e-3)
-        np.testing.assert_array_equal(c1.i_sing1, c2.i_sing1)
-        np.testing.assert_array_equal(c1.best_flat, c2.best_flat)
-        np.testing.assert_allclose(c1.sing_col, c2.sing_col,
-                                   rtol=0, atol=2e-3)
+    np.testing.assert_allclose(l1, l2, rtol=0, atol=2e-3)
+    np.testing.assert_array_equal(c1.i_sing1, c2.i_sing1)
+    np.testing.assert_array_equal(c1.best_flat, c2.best_flat)
+    np.testing.assert_allclose(c1.sing_col, c2.sing_col, rtol=0, atol=2e-3)
 
 
 def test_native_pack_v2_matches_python():
     """dmx_pack2_fill emits BYTE-identical wire buffers + identical meta
     to the Python packer across widths, deep tails, escapes, holes,
     markers, and padded rows — on CSR data (the production input)."""
-    native = pytest.importorskip("demuxlet_tpu.native.prep")
+    native = pytest.importorskip("demuxlet_jax.native.prep")
     if not native.available():
         pytest.skip("native prep not built")
-    from demuxlet_tpu.host.csr import CsrPileup, build_codes_block
+    from demuxlet_jax.host.csr import CsrPileup, build_codes_block
 
     rng = np.random.default_rng(23)
     n_cells, NS = 70, 5000
@@ -379,10 +360,10 @@ def test_wire_v2_slot_extent_fallback():
     cfg = _cfg([3, 44])
     assert W.pack_wire_block(codes, idx, msk, cfg) is None
 
-    native = pytest.importorskip("demuxlet_tpu.native.prep")
+    native = pytest.importorskip("demuxlet_jax.native.prep")
     if not native.available():
         pytest.skip("native prep not built")
-    from demuxlet_tpu.host.csr import CsrPileup
+    from demuxlet_jax.host.csr import CsrPileup
 
     snps = np.arange(n_slots, dtype=np.int64)
     csr = CsrPileup.from_arrays(
@@ -396,15 +377,15 @@ def test_wire_v2_slot_extent_fallback():
 
 
 def test_engine_python_packer_matches_native(tmp_path):
-    """DEMUX_TPU_NO_NATIVE_PREP=1 routes the engine through
+    """DEMUX_NO_NATIVE_PREP=1 routes the engine through
     build_codes_block + pack_wire_block; fast-mode results must be
     BIT-identical to the native pack_block_v2 route (the wire bytes are
     pinned identical by test_native_pack_v2_matches_python; this checks
     the engine plumbing end-to-end)."""
     import jax
 
-    from demuxlet_tpu.host.csr import CsrPileup
-    from demuxlet_tpu.models.engine import DemuxEngine
+    from demuxlet_jax.host.csr import CsrPileup
+    from demuxlet_jax.models.engine import DemuxEngine
 
     rng = np.random.default_rng(31)
     n_cells, NS, V = 40, 250, 3
@@ -426,16 +407,16 @@ def test_engine_python_packer_matches_native(tmp_path):
     )
     gps = rng.dirichlet(np.ones(3), size=(NS, V))
 
-    native = pytest.importorskip("demuxlet_tpu.native.prep")
+    native = pytest.importorskip("demuxlet_jax.native.prep")
     if not native.available():
         pytest.skip("native prep not built — parity arm would be vacuous")
 
     def run(no_native):
         if no_native:
-            os.environ["DEMUX_TPU_NO_NATIVE_PREP"] = "1"
+            os.environ["DEMUX_NO_NATIVE_PREP"] = "1"
         try:
             # the native module caches load state; reset between runs
-            from demuxlet_tpu.native import prep as nprep
+            from demuxlet_jax.native import prep as nprep
 
             nprep._LIB = None
             nprep._LOAD_FAILED = False
@@ -443,7 +424,7 @@ def test_engine_python_packer_matches_native(tmp_path):
                               mode="fast")
             return eng.run_compact(csr, doublet_prior=0.5)
         finally:
-            os.environ.pop("DEMUX_TPU_NO_NATIVE_PREP", None)
+            os.environ.pop("DEMUX_NO_NATIVE_PREP", None)
             nprep._LIB = None
             nprep._LOAD_FAILED = False
 

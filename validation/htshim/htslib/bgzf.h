@@ -1,6 +1,6 @@
 /* Minimal bgzf.h for the reference-validation build (plain-FILE backed;
  * the validation runs use uncompressed text only). Not part of
- * demuxlet-tpu. */
+ * demuxlet-jax. */
 #ifndef HTSHIM_BGZF_H
 #define HTSHIM_BGZF_H
 #include <stdint.h>

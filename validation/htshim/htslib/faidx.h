@@ -1,6 +1,6 @@
 /* Minimal faidx.h for the reference-validation build: the demuxlet runs
  * never touch a FASTA, so every entry point aborts if invoked. Not part
- * of demuxlet-tpu. */
+ * of demuxlet-jax. */
 #ifndef HTSHIM_FAIDX_H
 #define HTSHIM_FAIDX_H
 #ifdef __cplusplus

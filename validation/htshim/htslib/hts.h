@@ -4,7 +4,7 @@
  * validation/htshim/shim.c over plain-text SAM/VCF files. Only the
  * surface the upstream demuxlet sources touch is provided; everything
  * else is absent so misuse fails at compile/link time. Not part of
- * demuxlet-tpu.
+ * demuxlet-jax.
  */
 #ifndef HTSHIM_HTS_H
 #define HTSHIM_HTS_H

@@ -3,7 +3,7 @@
  * Clean-room generic open-addressing hash exposing the khash macro API
  * (KHASH_MAP_INIT_STR / kh_get / kh_put / kh_val / ...). Linear probing
  * over power-of-two capacity; deletion not supported (the validation
- * build never deletes). Not part of demuxlet-tpu.
+ * build never deletes). Not part of demuxlet-jax.
  */
 #ifndef HTSHIM_KHASH_H
 #define HTSHIM_KHASH_H

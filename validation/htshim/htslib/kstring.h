@@ -3,7 +3,7 @@
  * Clean-room subset of the htslib kstring interface (names/semantics per
  * the public API docs); used only to compile the upstream demuxlet
  * sources against validation/htshim so golden outputs can be produced
- * from the reference's own algorithm code. Not part of demuxlet-tpu.
+ * from the reference's own algorithm code. Not part of demuxlet-jax.
  */
 #ifndef HTSHIM_KSTRING_H
 #define HTSHIM_KSTRING_H

@@ -1,7 +1,7 @@
 /* Minimal API-compatible sam.h for the reference-validation build.
  * Clean-room subset of the htslib 1.10 public interface; records are
  * parsed from PLAIN-TEXT SAM by validation/htshim/shim.c. Not part of
- * demuxlet-tpu.
+ * demuxlet-jax.
  */
 #ifndef HTSHIM_SAM_H
 #define HTSHIM_SAM_H

@@ -2,7 +2,7 @@
  * Clean-room subset of the htslib 1.10 public interface; records are
  * parsed from PLAIN-TEXT VCF by validation/htshim/shim_vcf.c. Field
  * names/semantics follow the public htslib API that the upstream
- * demuxlet sources program against. Not part of demuxlet-tpu.
+ * demuxlet sources program against. Not part of demuxlet-jax.
  */
 #ifndef HTSHIM_VCF_H
 #define HTSHIM_VCF_H

@@ -11,7 +11,7 @@
  * shim_bcf.cpp). Anything else — CRAM, indexes, regions, FASTA —
  * aborts loudly.
  *
- * This file is validation tooling, NOT part of the demuxlet-tpu runtime.
+ * This file is validation tooling, NOT part of the demuxlet-jax runtime.
  */
 
 #include <cctype>
